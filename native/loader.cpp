@@ -1,6 +1,6 @@
 // hq_loader — native batch image loader + layout converters.
 //
-// C++ runtime component of hybridquantization_tpu: the TPU-native equivalent
+// C++ runtime component of hybridquantization: the equivalent
 // of the reference's host-side image plumbing (Icy Sequence I/O +
 // HybridQuantization.makeinline/makeChannels layout converters,
 // HybridQuantization.java:95-125,279-309) and its multithreaded host worker

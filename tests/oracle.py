@@ -117,6 +117,72 @@ def delta_e76(lab1, lab2):
     return np.linalg.norm(d, axis=-1)
 
 
+def delta_e94(lab1, lab2):
+    """CIE94, graphic-arts constants (kL = 1, K1 = 0.045, K2 = 0.015), with
+    the reference's asymmetry: the weights use the chroma of lab1
+    (OptimizedConvolution.cl:218-226)."""
+    lab1 = np.asarray(lab1, np.float64)
+    lab2 = np.asarray(lab2, np.float64)
+    dL = lab1[..., 0] - lab2[..., 0]
+    c1 = np.hypot(lab1[..., 1], lab1[..., 2])
+    c2 = np.hypot(lab2[..., 1], lab2[..., 2])
+    dC = c1 - c2
+    dE2 = np.sum((lab1 - lab2) ** 2, axis=-1)
+    dH2 = np.maximum(dE2 - dL * dL - dC * dC, 0.0)
+    return np.sqrt(
+        dL**2 + (dC / (1 + 0.045 * c1)) ** 2 + dH2 / (1 + 0.015 * c1) ** 2
+    )
+
+
+def delta_e2000(lab1, lab2):
+    """CIEDE2000 (kL = kC = kH = 1), in degrees, following Sharma, Wu &
+    Dalal, "The CIEDE2000 color-difference formula" (2005), eqs. 2-23."""
+    lab1 = np.asarray(lab1, np.float64)
+    lab2 = np.asarray(lab2, np.float64)
+    L1, a1, b1 = np.moveaxis(lab1, -1, 0)
+    L2, a2, b2 = np.moveaxis(lab2, -1, 0)
+    cbar7 = ((np.hypot(a1, b1) + np.hypot(a2, b2)) / 2) ** 7
+    G = 0.5 * (1 - np.sqrt(cbar7 / (cbar7 + 25.0**7)))
+    a1p, a2p = (1 + G) * a1, (1 + G) * a2
+    C1p, C2p = np.hypot(a1p, b1), np.hypot(a2p, b2)
+    h1p = np.degrees(np.arctan2(b1, a1p)) % 360
+    h2p = np.degrees(np.arctan2(b2, a2p)) % 360
+    h1p = np.where((a1p == 0) & (b1 == 0), 0.0, h1p)
+    h2p = np.where((a2p == 0) & (b2 == 0), 0.0, h2p)
+    zero = C1p * C2p == 0
+    dh = h2p - h1p
+    dh = np.where(dh > 180, dh - 360, np.where(dh < -180, dh + 360, dh))
+    dh = np.where(zero, 0.0, dh)
+    dHp = 2 * np.sqrt(C1p * C2p) * np.sin(np.radians(dh) / 2)
+    hs = h1p + h2p
+    hbar = np.where(
+        np.abs(h1p - h2p) <= 180, hs / 2,
+        np.where(hs < 360, (hs + 360) / 2, (hs - 360) / 2),
+    )
+    hbar = np.where(zero, hs, hbar)
+    T = (
+        1
+        - 0.17 * np.cos(np.radians(hbar - 30))
+        + 0.24 * np.cos(np.radians(2 * hbar))
+        + 0.32 * np.cos(np.radians(3 * hbar + 6))
+        - 0.20 * np.cos(np.radians(4 * hbar - 63))
+    )
+    Lbar = (L1 + L2) / 2
+    Cbar7 = ((C1p + C2p) / 2) ** 7
+    SL = 1 + 0.015 * (Lbar - 50) ** 2 / np.sqrt(20 + (Lbar - 50) ** 2)
+    SC = 1 + 0.045 * (C1p + C2p) / 2
+    SH = 1 + 0.015 * (C1p + C2p) / 2 * T
+    RT = (
+        -2 * np.sqrt(Cbar7 / (Cbar7 + 25.0**7))
+        * np.sin(np.radians(60 * np.exp(-(((hbar - 275) / 25) ** 2))))
+    )
+    tL, tC, tH = (L2 - L1) / SL, (C2p - C1p) / SC, dHp / SH
+    return np.sqrt(tL**2 + tC**2 + tH**2 + RT * tC * tH)
+
+
+DELTA_E = {"CIE76": delta_e76, "CIE94": delta_e94, "CIEDE2000": delta_e2000}
+
+
 # -- filter bank ------------------------------------------------------------
 
 WEIGHTS = [[1.00327, 0.114416, -0.117686], [0.616725, 0.383275], [0.567885, 0.432115]]
@@ -314,7 +380,10 @@ def _augmented_palette(flat):
     return aug
 
 
-def fitness(image_hwc, target_lab, palette, ofilters, abs_k3, delta=2.0, wp=D65):
+def fitness(
+    image_hwc, target_lab, palette, ofilters, abs_k3, delta=2.0, wp=D65,
+    delta_e="CIE76",
+):
     H, W, _ = image_hwc.shape
     idx = nearest_palette(image_hwc.reshape(-1, 3), palette)
     used = np.zeros(len(palette), bool)
@@ -325,7 +394,8 @@ def fitness(image_hwc, target_lab, palette, ofilters, abs_k3, delta=2.0, wp=D65)
     opp_palette = xyz_to_opp(srgb_to_xyz(palette))
     q_opp = opp_palette[idx].reshape(H, W, 3)
     q_lab = opp_to_lab(scielab_filter(q_opp, ofilters, abs_k3), wp)
-    return delta_e76(target_lab, q_lab).mean() + delta * (~used).sum()
+    de = DELTA_E[delta_e](target_lab, q_lab)
+    return de.mean() + delta * (~used).sum()
 
 
 def fitness_population(

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hybridquantization_tpu.ops import assign
+from hybridquantization.ops import assign
 
 from . import oracle
 
@@ -128,7 +128,7 @@ def test_lloyd_polish_matches_steps(rng):
 def test_engine_polish_improves_quality(rng):
     """HybridQuantizer.polish lowers assignment-space MSE from a rough
     palette, in both assignment spaces, and stays in gamut."""
-    from hybridquantization_tpu import HybridQuantizer, QuantizationConfig, SWASAConfig
+    from hybridquantization import HybridQuantizer, QuantizationConfig, SWASAConfig
 
     img = rng.random((24, 32, 3), dtype=np.float32)
     pixels = img.reshape(-1, 3)
@@ -147,7 +147,7 @@ def test_engine_polish_improves_quality(rng):
 
 
 def test_kmeans_init_palettes(rng):
-    from hybridquantization_tpu.ops import kmeans
+    from hybridquantization.ops import kmeans
 
     pixels = np.concatenate(
         [
@@ -177,7 +177,7 @@ def test_kmeans_init_palettes(rng):
 def test_kmeans_init_beats_random_at_init(rng):
     """The k-means seeded population starts with a lower fitness than the
     reference's uniform-random init (the anneal itself is unchanged)."""
-    from hybridquantization_tpu import HybridQuantizer, QuantizationConfig, SWASAConfig
+    from hybridquantization import HybridQuantizer, QuantizationConfig, SWASAConfig
     import dataclasses
 
     img = rng.random((32, 40, 3), dtype=np.float32)
@@ -194,7 +194,7 @@ def test_kmeans_init_beats_random_at_init(rng):
 
 def test_lloyd_polish_hist_close_to_exact(rng):
     """Histogram-space polish lands near the exact per-pixel polish."""
-    from hybridquantization_tpu.ops.kmeans import lloyd_polish_hist
+    from hybridquantization.ops.kmeans import lloyd_polish_hist
 
     pixels = rng.random((20000, 3), dtype=np.float32)
     palette = rng.random((8, 3), dtype=np.float32)
@@ -212,7 +212,7 @@ def test_polish_palette_lab_hist_close_to_exact(rng):
     lab-space MSE — the rule that previously forced lab polishing to the
     per-pixel path made the north-star mode pay the only per-pixel
     polish at 4K."""
-    from hybridquantization_tpu import colorspace as cs
+    from hybridquantization import colorspace as cs
 
     wp = cs.WHITEPOINTS["D65"]
     pixels = rng.random((30000, 3), dtype=np.float32)

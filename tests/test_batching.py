@@ -5,7 +5,7 @@ import sys
 
 import numpy as np
 
-from hybridquantization_tpu.batching import (
+from hybridquantization.batching import (
     bucket_by_resolution,
     pad_indices,
     run_bucketed,
@@ -47,7 +47,7 @@ def test_run_bucketed_reorders(rng):
 
 def test_batch_cli_smoke(tmp_path, rng):
     """Drive the quantize-batch CLI end-to-end on the CPU backend."""
-    from hybridquantization_tpu import io as hio
+    from hybridquantization import io as hio
 
     paths = []
     for i, shape in enumerate([(64, 48), (64, 48), (80, 64)]):
@@ -58,7 +58,7 @@ def test_batch_cli_smoke(tmp_path, rng):
 
     code = (
         "import jax; jax.config.update('jax_platforms','cpu');"
-        "from hybridquantization_tpu.cli import main;"
+        "from hybridquantization.cli import main;"
         f"raise SystemExit(main(['quantize-batch', *{paths!r},"
         f" '--out-dir', {str(tmp_path / 'out')!r}, '--colors', '4',"
         " '--imax', '10', '--population', '2', '--mesh-data', '1',"
@@ -87,8 +87,8 @@ def test_batch_kmeans_init_and_polish(rng):
     import jax
     import numpy as np
 
-    from hybridquantization_tpu import QuantizationConfig, SWASAConfig
-    from hybridquantization_tpu.parallel import ShardedBatchQuantizer, make_mesh
+    from hybridquantization import QuantizationConfig, SWASAConfig
+    from hybridquantization.parallel import ShardedBatchQuantizer, make_mesh
 
     imgs = rng.random((2, 24, 32, 3)).astype(np.float32)
     mesh = make_mesh(2, 2)
@@ -114,8 +114,8 @@ def test_bucketed_batch_64_mixed_resolutions(rng):
     correctly shaped output, and <= K distinct colors."""
     import time
 
-    from hybridquantization_tpu import QuantizationConfig, SWASAConfig
-    from hybridquantization_tpu.parallel import ShardedBatchQuantizer, make_mesh
+    from hybridquantization import QuantizationConfig, SWASAConfig
+    from hybridquantization.parallel import ShardedBatchQuantizer, make_mesh
 
     K = 5
     sizes = [(24, 32), (32, 24), (40, 40), (24, 24)]

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hybridquantization_tpu import HybridQuantizer, QuantizationConfig, SWASAConfig
-from hybridquantization_tpu.checkpoint import load_state, save_state
+from hybridquantization import HybridQuantizer, QuantizationConfig, SWASAConfig
+from hybridquantization.checkpoint import load_state, save_state
 
 
 def _img(rng):

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from hybridquantization_tpu.cli import main
+from hybridquantization.cli import main
 
 
 @pytest.fixture()

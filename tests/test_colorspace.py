@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hybridquantization_tpu import colorspace as cs
+from hybridquantization import colorspace as cs
 
 from . import oracle
 

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hybridquantization_tpu import HybridQuantizer, QuantizationConfig, SWASAConfig
-from hybridquantization_tpu.config import ScielabConfig
-from hybridquantization_tpu.pipeline import _make_context, make_fitness
+from hybridquantization import HybridQuantizer, QuantizationConfig, SWASAConfig
+from hybridquantization.config import ScielabConfig
+from hybridquantization.pipeline import _make_context, make_fitness
 
 
 def _img(rng, h=24, w=28):

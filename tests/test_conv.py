@@ -3,7 +3,7 @@
 import numpy as np
 from scipy.ndimage import correlate1d
 
-from hybridquantization_tpu.ops.conv import (
+from hybridquantization.ops.conv import (
     conv1d_symmetric,
     separable_conv2d_symmetric,
 )

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from hybridquantization_tpu.scielab import filters as F
+from hybridquantization.scielab import filters as F
 
 from . import oracle
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from hybridquantization_tpu import io as hio
+from hybridquantization import io as hio
 
 
 def test_ppm_round_trip(tmp_path, rng):

@@ -2,7 +2,7 @@
 
 import jax.numpy as jnp
 
-from hybridquantization_tpu import metrics
+from hybridquantization import metrics
 
 
 def test_stage_timer(capsys):

@@ -6,8 +6,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from hybridquantization_tpu import io as hio
-from hybridquantization_tpu import native
+from hybridquantization import io as hio
+from hybridquantization import native
 
 NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
 

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from hybridquantization_tpu import HybridQuantizer, QuantizationConfig, SWASAConfig
-from hybridquantization_tpu.pipeline import _make_context, make_fitness
+from hybridquantization import HybridQuantizer, QuantizationConfig, SWASAConfig
+from hybridquantization.pipeline import _make_context, make_fitness
 
 from . import oracle
 

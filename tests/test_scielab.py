@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hybridquantization_tpu.scielab import build_filters, srgb_to_scielab
-from hybridquantization_tpu.scielab import transform as sct
+from hybridquantization.scielab import build_filters, srgb_to_scielab
+from hybridquantization.scielab import transform as sct
 
 from . import oracle
 
@@ -30,7 +30,7 @@ def test_uniform_image_stays_uniform():
     for c in range(3):
         assert np.abs(lab[..., c] - lab[16, 16, c]).max() < 1e-3
     # gray 0.5: L of the filtered image ~ L of plain LAB (luminance gain ~1)
-    from hybridquantization_tpu import colorspace as cs
+    from hybridquantization import colorspace as cs
 
     plain = np.asarray(cs.srgb_to_lab(jnp.full((3,), 0.5)))
     assert abs(lab[16, 16, 0] - plain[0]) < 1.5

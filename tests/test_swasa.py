@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hybridquantization_tpu.config import SWASAConfig
-from hybridquantization_tpu.swasa import loop, schedule
-from hybridquantization_tpu.swasa.state import (
+from hybridquantization.config import SWASAConfig
+from hybridquantization.swasa import loop, schedule
+from hybridquantization.swasa.state import (
     state_from_numpy,
     state_to_numpy,
 )

@@ -1,4 +1,4 @@
-"""Tests for the deterministic content generators (hybridquantization_tpu.synth).
+"""Tests for the deterministic content generators (hybridquantization.synth).
 
 The natural-statistics image is a measurement axis (bench + parity), so
 its defining properties are pinned: determinism, range, spatial
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from hybridquantization_tpu import synth
+from hybridquantization import synth
 
 
 def test_natural_image_deterministic():

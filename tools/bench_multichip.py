@@ -1,18 +1,16 @@
-"""Multi-chip throughput bench of the column-sharded fast path.
+"""Multi-device throughput bench of the row-sharded batch engine.
 
-Times SWASA chunks per pixel-shard count on the column-sharded engine
-(parallel.fast: per-shard Pallas kernels, ppermute guards, member-
-pipelined psums). On real multi-chip hardware this measures ICI scaling
-(BASELINE north star: >= 80% linear to 2 hosts); on this environment
-(one chip / virtual CPU devices) it validates the sharded programs
-compile and run at every shard count, TPU-ready for real multi-chip.
+Times SWASA chunks per pixel-shard count on ShardedBatchQuantizer
+(parallel.sharded: per-shard XLA assignment and S-CIELAB filter, halo
+ppermutes, error/usage psums). On several GPUs this measures scaling; on
+virtual CPU devices it only shows that the sharded programs compile and run
+at every shard count (no device timing).
 
-`measure_scaling` is the library entry — bench.py folds its rows into the
-BENCH json (extra.multichip), so a real multi-chip environment produces
-the scaling table with zero new code.
+`measure_scaling` is the library entry — bench.py folds its rows into its
+JSON line.
 
 Run:
-  python tools/bench_multichip.py                      # all feasible counts
+  python tools/bench_multichip.py                      # all device counts
   python tools/bench_multichip.py --shards 2,4 --size 512x768 --iters 10
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python tools/bench_multichip.py --cpu            # 8 virtual devices
@@ -33,30 +31,25 @@ def measure_scaling(
     shard_counts, H, W, colors=256, population=4, iters=10, reps=3,
     log=None,
 ):
-    """Per-pixel-shard-count SWASA timing rows for the column-sharded engine.
+    """Per-pixel-shard-count SWASA timing rows for the row-sharded engine.
 
     Returns a list of row dicts (pixel_shards, iter_ms, iters_per_s,
-    eval_mpix_per_s, and — beyond the first feasible count — an explicit
-    speedup_vs_<baseline> plus scaling_efficiency). Infeasible counts are
-    skipped (plan_fast mirror-pad limit).
+    eval_mpix_per_s, and — beyond the first count — an explicit
+    speedup_vs_<baseline> plus scaling_efficiency). Counts whose strips
+    would be shorter than the filter half-width are skipped.
     """
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from hybridquantization_tpu import QuantizationConfig, SWASAConfig
-    from hybridquantization_tpu.parallel import (
-        ShardedBatchQuantizer,
-        make_mesh,
-        plan_fast,
-    )
+    from hybridquantization import QuantizationConfig, SWASAConfig
+    from hybridquantization.parallel import ShardedBatchQuantizer, make_mesh
 
     devices = jax.devices()
     cfg = QuantizationConfig(
         swasa=SWASAConfig(
             num_colors=colors, population=population, imax=10**6
         ),
-        conv_precision="bf16",
     )
     rng = np.random.default_rng(0)
     images = rng.random((1, H, W, 3), dtype=np.float32)
@@ -66,26 +59,26 @@ def measure_scaling(
         if n_pixel > len(devices):
             continue
         q = ShardedBatchQuantizer(
-            cfg, make_mesh(1, n_pixel, devices=devices[:n_pixel]),
-            strategy="columns",
+            cfg, make_mesh(1, n_pixel, devices=devices[:n_pixel])
         )
-        *_, ok = plan_fast(H, W, q.filters.half_width, n_pixel)
-        if not ok:
+        try:
+            q._row_plan(H)
+        except ValueError:
             if log:
-                log(f"shards={n_pixel}: plan_fast infeasible, skipped")
+                log(f"shards={n_pixel}: strips too short, skipped")
             continue
-        prepare, init_fn, chunk_fn, _ = q._fast_fns
-
-        imgs = jnp.asarray(images)
+        prepare, init_fn, chunk_fn = q._prepare, q._init, q._chunk
+        imgs, h_true = q._pad_rows(jnp.asarray(images))
         keys = jax.vmap(jax.random.PRNGKey)(jnp.arange(1, dtype=jnp.uint32))
         ctx = prepare(imgs)
-        state = init_fn(imgs, ctx, keys, None)
-        state, _ = chunk_fn(state, imgs, ctx, iters)  # compile + warm
+        hv = None if imgs.shape[1] == h_true else h_true
+        state = init_fn(imgs, ctx, keys, None, hv)
+        state, _ = chunk_fn(state, imgs, ctx, iters, hv)  # compile + warm
         jax.device_get(state.best_error)
         ts = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            state, _ = chunk_fn(state, imgs, ctx, iters)
+            state, _ = chunk_fn(state, imgs, ctx, iters, hv)
             jax.device_get(state.best_error)
             ts.append(time.perf_counter() - t0)
         ts.sort()
@@ -97,10 +90,9 @@ def measure_scaling(
             "eval_mpix_per_s": round(population * H * W / dt / 1e6, 1),
         }
         if results:
-            # Baseline = the FIRST FEASIBLE shard count (not necessarily 1:
-            # --shards 2,4 or an infeasible 1-shard plan start elsewhere);
-            # the key names it so scaling is never read against the wrong
-            # denominator.
+            # Baseline = the FIRST measured shard count (--shards 2,4 starts
+            # at 2); the key names it so scaling is never read against the
+            # wrong denominator.
             base = results[0]
             row[f"speedup_vs_{base['pixel_shards']}"] = round(
                 base["iter_ms"] / row["iter_ms"], 3
@@ -118,7 +110,7 @@ def measure_scaling(
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shards", default="", help="comma list of pixel-shard counts")
-    ap.add_argument("--size", default="", help="HxW (default 4K on TPU, 256x1040 on CPU)")
+    ap.add_argument("--size", default="", help="HxW (default 4K on a GPU, 256x1040 on CPU)")
     ap.add_argument("--colors", "-k", type=int, default=256)
     ap.add_argument("--population", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10, help="iterations per timed chunk")
@@ -135,10 +127,9 @@ def main() -> int:
         jax.config.update("jax_platforms", "cpu")
 
     devices = jax.devices()
-    on_tpu = jax.default_backend() == "tpu"
     if args.size:
         H, W = (int(v) for v in args.size.split("x"))
-    elif on_tpu:
+    elif jax.default_backend() == "gpu":
         H, W = 2160, 3840
     else:
         H, W = 256, 1040

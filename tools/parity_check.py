@@ -37,14 +37,14 @@ sys.path.insert(0, os.path.dirname(_HERE) if _HERE.endswith("tools") else _HERE)
 def make_test_image(size: int, rng) -> np.ndarray:
     """Historical smooth parity workload (delegates to synth; the committed
     JSONL evidence depends on this staying bit-identical)."""
-    from hybridquantization_tpu import synth
+    from hybridquantization import synth
 
     return synth.smooth_test_image(size, rng)
 
 
 def content_image(content: str, size: int, seed: int = 0) -> np.ndarray:
     """Shared content-axis dispatch for the parity runners."""
-    from hybridquantization_tpu import synth
+    from hybridquantization import synth
 
     if content == "smooth":
         return make_test_image(size, np.random.default_rng(seed))
@@ -71,7 +71,7 @@ def main() -> int:
     ap.add_argument(
         "--oracle-jobs", type=int, default=1,
         help="run the oracle seeds in N parallel processes, launched "
-        "BEFORE the engine seeds (the engine mostly waits on the TPU, so "
+        "BEFORE the engine seeds (the engine mostly waits on the device, so "
         "the overlap is nearly free). Use for the config-2-scale check "
         "(--size 1024 --colors 64), where one oracle seed is ~30-60 min "
         "of NumPy",
@@ -84,18 +84,13 @@ def main() -> int:
         "use for the config-2-scale check",
     )
     ap.add_argument("--precision", default="f32x3", choices=["highest", "f32x3", "bf16"])
-    ap.add_argument("--tie-mode", default="first", choices=["first", "average"])
-    ap.add_argument(
-        "--conv-precision", default="", choices=["", "highest", "f32x3", "bf16"],
-        help="S-CIELAB filter precision, separable from assignment scores",
-    )
     ap.add_argument(
         "--fast", action="store_true",
-        help="validate the fast mode: --precision bf16 --tie-mode average",
+        help="validate the fast mode: --precision bf16",
     )
     args = ap.parse_args()
     if args.fast:
-        args.precision, args.tie_mode = "bf16", "average"
+        args.precision = "bf16"
     if args.seeds < 24:
         print(
             f"WARNING: --seeds {args.seeds} < 24. Per-seed final-error std is "
@@ -114,15 +109,14 @@ def main() -> int:
     from tests import oracle
 
     if args.image:
-        from hybridquantization_tpu import io as hio
+        from hybridquantization import io as hio
 
         img = hio.load_image(args.image)
     else:
         img = content_image(args.content, args.size)
 
     print(
-        f"engine precision={args.precision} tie_mode={args.tie_mode} "
-        f"conv_precision={args.conv_precision or args.precision} "
+        f"engine precision={args.precision} "
         f"oracle_dtype={args.oracle_dtype} content={args.content}"
     )
     ofilters, abs_k3, _ = oracle.build_filters(72, 45.0)
@@ -167,7 +161,7 @@ def main() -> int:
         # fork Processes, not Pool: Pool pickles the task callable (fails
         # on this closure); fork Process inherits it directly. Workers are
         # pure NumPy — they never touch jax. Launched BEFORE the engine
-        # seeds: the engine mostly blocks on the TPU. Each worker judges
+        # seeds: the engine mostly blocks on the device. Each worker judges
         # its own seeds (f64 quality) and streams results so a partial
         # log still yields per-seed values.
         import multiprocessing as mp
@@ -194,24 +188,22 @@ def main() -> int:
             p.start()
 
     # jax only touched AFTER the oracle workers forked: forking a process
-    # whose TPU client threads hold locks can deadlock the children.
+    # whose device client threads hold locks can deadlock the children.
     import jax
 
-    from hybridquantization_tpu import (
+    from hybridquantization import (
         HybridQuantizer,
         QuantizationConfig,
         SWASAConfig,
     )
-    from hybridquantization_tpu.cli import _enable_compilation_cache
+    from hybridquantization.runtime import enable_compilation_cache
 
-    _enable_compilation_cache()
+    enable_compilation_cache()
     cfg = QuantizationConfig(
         swasa=SWASAConfig(
             num_colors=args.colors, population=args.population, imax=args.imax
         ),
         precision=args.precision,
-        tie_mode=args.tie_mode,
-        conv_precision=args.conv_precision,
     )
     engine = HybridQuantizer(cfg)
 

@@ -1,6 +1,6 @@
 """Combine engine_run/oracle_run JSONLs into the layer-3 parity verdict.
 
-Reads the per-seed quality records produced by tools/engine_run.py (TPU
+Reads the per-seed quality records produced by tools/engine_run.py (engine
 side) and tools/oracle_run.py (NumPy side) — both judged by the same f64
 oracle judge — and reports the relative gap of the mean ΔE and MSE with
 its 1σ seed-noise, so the PASS statement is explicit about what the seed
